@@ -1,11 +1,11 @@
 // Binned-SAH BVH builder producing a flattened, threaded (stackless) layout
-// for TPU wavefront traversal.
+// for wavefront traversal.
 //
 // Role: the native replacement for Embree's BVH build
 // (reference: src/ray_tracing/embree_interface.cpp:30-51 commits an
-// RTC_BUILD_QUALITY_HIGH scene; the traversal itself is re-implemented on
-// TPU in romis_tpu/ops/traverse.py). Host-side, called once per scene via
-// ctypes (romis_tpu/ops/bvh.py), so build speed matters less than output
+// RTC_BUILD_QUALITY_HIGH scene; the traversal itself is re-implemented in
+// romis/ops/traverse.py). Host-side, called once per scene via
+// ctypes (romis/ops/bvh.py), so build speed matters less than output
 // quality, but the binned SAH build is O(N log N) and fast anyway.
 //
 // Output layout (DFS order, "threaded"/skip-link form):

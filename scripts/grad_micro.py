@@ -1,5 +1,5 @@
-"""Micro-profile the gradient-path primitives at 1080p on TPU: which part
-of the spatial/RIS backward costs seconds (VERDICT #2 groundwork).
+"""Micro-profile the gradient-path primitives at 1080p on a GPU: which
+part of the spatial/RIS backward costs the most.
 
 Run: python scripts/grad_micro.py
 """
@@ -41,13 +41,13 @@ def main():
     dy = jnp.clip(rows[None] + dy, 0, h - 1) - rows[None]
     dx = jnp.clip(cols[None] + dx, 0, w - 1) - cols[None]
 
-    from romis_tpu.ops.pallas_spatial import halo_offset_gather
+    from romis.ops.gather import halo_offset_gather
 
     def g_fwd(p):
-        return jnp.sum(halo_offset_gather(p, dy, dx, r))
+        return jnp.sum(halo_offset_gather(p, dy, dx))
 
     timed("halo_offset_gather fwd", lambda p: halo_offset_gather(
-        p, dy, dx, r), planes)
+        p, dy, dx), planes)
     timed("halo_offset_gather grad", jax.grad(g_fwd), planes)
 
     # The raw scatter in the VJP, isolated.
@@ -61,9 +61,9 @@ def main():
     timed("segment_sum scatter [10M,38]", scat, ct)
 
     # combine_biased grad alone (R = d+1 streams, K lanes).
-    from romis_tpu.core.features import Features
-    from romis_tpu.core.types import Reservoirs, ShadeCtx
-    from romis_tpu.ops.wrs import combine_biased
+    from romis.core.features import Features
+    from romis.core.types import Reservoirs, ShadeCtx
+    from romis.ops.wrs import combine_biased
 
     feats = Features()
     rr = d + 1
@@ -98,8 +98,8 @@ def main():
     timed("combine_biased grad", jax.grad(comb_diff, argnums=(0, 1)), res, cin)
 
     # RIS slot-scan primitives: light-table gather + scatter VJP.
-    from romis_tpu.scene.lights import sample_lights_planes
-    from romis_tpu.scene.scene import load_prebuilt
+    from romis.scene.lights import sample_lights_planes
+    from romis.scene.scene import load_prebuilt
     import __graft_entry__ as ge
 
     scene = ge._flagship_scene()

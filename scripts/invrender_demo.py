@@ -7,10 +7,11 @@ until the render matches the target — the end-to-end proof of the
 gradient path (SURVEY north star: image + gradients; BASELINE config 5's
 "gradient pass").
 
-Run: python scripts/invrender_demo.py  (TPU or CPU; ~2 min on TPU)
+Run: python scripts/invrender_demo.py  (GPU, or CPU with JAX_PLATFORMS=cpu)
      INVRENDER_MODE=romis python scripts/invrender_demo.py  (through the
      R-OMIS estimator's gradient path instead — rmis also accepted)
-Writes /tmp/invrender_{target,initial,final}.png and prints the loss curve.
+Writes renders/invrender_{target,initial,final}.png and prints the loss
+curve.
 """
 
 import os
@@ -24,14 +25,17 @@ import jax.numpy as jnp
 
 
 def main():
-    from romis_tpu.core.camera import make_camera
-    from romis_tpu.core.features import Features
-    from romis_tpu.diff.grad import (
+    from romis.utils.runtime import setup_compile_cache
+
+    setup_compile_cache()
+    from romis.core.camera import make_camera
+    from romis.core.features import Features
+    from romis.diff.grad import (
         extract_params, render_with_params,
     )
-    from romis_tpu.io.image import write_image
-    from romis_tpu.render.restir import initial_temporal_state
-    from romis_tpu.scene.scene import load_prebuilt
+    from romis.io.image import write_image
+    from romis.render.restir import initial_temporal_state
+    from romis.scene.scene import load_prebuilt
 
     h, w = 128, 160
     scene = load_prebuilt("cornell_box_parallelogram_light")
@@ -49,8 +53,8 @@ def main():
     if mode in ("rmis", "romis"):
         # Same demo through the MIS estimators' gradient path
         # (diff/grad.render_mis_with_params, VERDICT r4 capability).
-        from romis_tpu.core.features import RayTraceMode
-        from romis_tpu.diff.grad import render_mis_with_params
+        from romis.core.features import RayTraceMode
+        from romis.diff.grad import render_mis_with_params
 
         feats = feats.replace(
             ray_trace_mode=RayTraceMode(mode), max_iterations_mis=3,
@@ -111,9 +115,10 @@ def main():
     print(f"final loss {losses[-1]:.3e} (start {losses[0]:.3e}), "
           f"max |light_c0 - truth| = {err0:.4f}")
 
+    os.makedirs("renders", exist_ok=True)
     for name, img in (("target", target), ("initial", initial),
                       ("final", final)):
-        write_image(f"/tmp/invrender_{name}.png",
+        write_image(f"renders/invrender_{name}.png",
                     np.clip(np.asarray(img), 0, 1))
     # The floor is set by partial identifiability: WRS winner selection is
     # (correctly) stop-grad and changes discretely with the parameters, so

@@ -1,21 +1,18 @@
-"""1080p R-MIS / R-OMIS gradient-step timing on TPU (VERDICT r3 item 1).
+"""1080p R-MIS / R-OMIS gradient-step timing on a GPU.
 
 value_and_grad of the MIS L2 loss (diff/grad.py mis_l2_image_loss) w.r.t.
 every scene parameter on the flagship nightclub workload. The MIS gradient
-path is the XLA formulation (fused_resampling=False contract) with
-per-iteration jax.checkpoint; this records the honest cost of that path.
+path runs with per-iteration jax.checkpoint.
 
 Run: python scripts/mis_grad_bench.py [--res 1080x1920]
 Env: MIS_GRAD_MODES=rmis_equal,romis_direct  MIS_GRAD_ITERS=5
      MIS_GRAD_SURR=1 — winner-replay surrogate for the per-iteration
      canonical RIS (Features.surrogate_resampling_grad, statistically
      validated in tests/test_grad_surrogate.py; the MIS gradient wrappers
-     pass the flag through). rmis_equal 1080p: 5.8 s exact → 3.9 s.
+     pass the flag through).
      MIS_GRAD_BANDS=N — band-sequential backward (diff/banded.py): the
      frame runs as a scan over N row bands with a checkpointed band body,
-     dividing reverse-mode residual memory by N. The only way R-OMIS
-     gradients fit single-chip HBM at 1080p (hbm_note in
-     perf_artifacts.json).
+     dividing reverse-mode residual memory by N.
 """
 
 import json
@@ -31,9 +28,9 @@ import jax.numpy as jnp
 
 def main():
     import __graft_entry__ as ge
-    from romis_tpu.core.features import Features, MISWeight, RayTraceMode
-    from romis_tpu.diff.banded import mis_banded_l2_loss
-    from romis_tpu.diff.grad import extract_params, mis_l2_image_loss
+    from romis.core.features import Features, MISWeight, RayTraceMode
+    from romis.diff.banded import mis_banded_l2_loss
+    from romis.diff.grad import extract_params, mis_l2_image_loss
 
     res_s = os.environ.get("RMIS_RES", "1080x1920")
     h, w = (int(x) for x in res_s.split("x"))

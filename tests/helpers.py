@@ -8,7 +8,7 @@ simple (pixel i ↔ column i).
 import numpy as np
 import jax.numpy as jnp
 
-from romis_tpu.core.types import Rays, ShadeCtx
+from romis.core.types import Rays, ShadeCtx
 
 
 def pack_vec(a):
@@ -42,7 +42,7 @@ def make_rays(origins, dirs) -> Rays:
 def random_reservoirs_and_ctx(rng, h, w, k):
     """Plausible random Reservoirs + ShadeCtx over a full [H, W] grid
     (unit normals, positive depths, mixed validity) for combine tests."""
-    from romis_tpu.core.types import Reservoirs
+    from romis.core.types import Reservoirs
 
     def f(*shape):
         return jnp.asarray(rng.uniform(0.1, 2.0, shape).astype(np.float32))

@@ -1,7 +1,7 @@
 """Slow, obviously-correct NumPy oracle used to validate the JAX pipeline.
 
 Implements the estimator math with plain Python loops, independently of the
-romis_tpu implementation (the reference semantics re-derived from
+romis implementation (the reference semantics re-derived from
 src/rendering/shading.cpp, reservoir.cpp, light.cpp — see SURVEY §2/§3).
 Tests feed both sides identical pre-drawn random numbers.
 """

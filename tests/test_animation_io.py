@@ -7,17 +7,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from romis_tpu.io.config import read_config_file
-from romis_tpu.io.image import write_bmp, write_png
-from romis_tpu.render.animation import (
+from romis.core.camera import make_camera
+from romis.core.features import Features
+from romis.io.checkpoint import load_checkpoint, save_checkpoint
+from romis.io.config import read_config_file
+from romis.io.image import write_bmp, write_png
+from romis.render.animation import (
     interpolate_cameras, render_animation, render_camera_batch,
     stack_cameras,
 )
-from romis_tpu.render.restir import initial_temporal_state, render_restir_frame
-from romis_tpu.scene.scene import load_prebuilt
+from romis.render.restir import initial_temporal_state, render_restir_frame
+from romis.scene.scene import load_prebuilt
 
 HW = (16, 16)
 
@@ -99,7 +99,7 @@ def test_cli_checkpoint_resume_bit_identical(tmp_path):
     4 — the final image must be BIT-IDENTICAL to an uninterrupted 4-frame
     run (VERDICT r3 item 9; per-frame keys are fold_in(cam_key, f), so the
     resumed scan consumes exactly the keys the full run would)."""
-    from romis_tpu.cli import main
+    from romis.cli import main
 
     out_full = tmp_path / "full"
     out_resume = tmp_path / "resume"
@@ -126,7 +126,7 @@ def test_cli_checkpoint_resume_bit_identical(tmp_path):
 def test_cli_save_alphas_per_channel(tmp_path):
     """--save-alphas writes one image per (technique, color channel) — the
     reference's visualiseAlphas layout (render_utils.cpp:189-243)."""
-    from romis_tpu.cli import main
+    from romis.cli import main
 
     out = tmp_path / "alphas"
     assert main(["--scene", "cornell_box_parallelogram_light",

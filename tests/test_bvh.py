@@ -4,12 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.ops.bvh import (
-    BVH, _build_arrays_numpy, _thread_links, build_bvh, sah_cost, _NATIVE,
+from romis.ops.bvh import (
+    BVH, _build_arrays_numpy, _thread_links, build_bvh, native_builder,
+    sah_cost,
 )
-from romis_tpu.ops.intersect import intersect_any, intersect_closest
-from romis_tpu.ops.traverse import bvh_any, bvh_closest
-from romis_tpu.scene.scene import load_prebuilt
+from romis.ops.intersect import intersect_any, intersect_closest
+from romis.ops.traverse import bvh_any, bvh_closest
+from romis.scene.scene import load_prebuilt
 
 from helpers import make_rays, pack_scalar, unpack_scalar
 
@@ -21,7 +22,7 @@ def _rand_rays(rng, n, spread=2.0):
     return make_rays(origins, dirs)
 
 
-@pytest.mark.parametrize("scene_name", ["cube", "cornell_box", "monkey"])
+@pytest.mark.parametrize("scene_name", ["cube", "cornell_box", "blob"])
 def test_bvh_closest_matches_bruteforce(scene_name):
     scene = load_prebuilt(scene_name)
     bvh, geo = build_bvh(scene.geometry)
@@ -43,7 +44,7 @@ def test_bvh_closest_matches_bruteforce(scene_name):
     assert hit_b.sum() > 10
 
 
-@pytest.mark.parametrize("scene_name", ["cornell_box", "monkey"])
+@pytest.mark.parametrize("scene_name", ["cornell_box", "blob"])
 def test_bvh_any_matches_bruteforce(scene_name):
     scene = load_prebuilt(scene_name)
     bvh, geo = build_bvh(scene.geometry)
@@ -78,8 +79,8 @@ def test_bvh_preserves_materials():
 def test_native_builder_available_and_better():
     """The C++ SAH builder must load and produce an equal-or-better tree than
     the median-split fallback on a real mesh."""
-    assert _NATIVE is not None, "native builder not built (make -C native)"
-    scene = load_prebuilt("monkey")
+    assert native_builder() is not None, "native builder did not build"
+    scene = load_prebuilt("blob")
     act = np.asarray(scene.geometry.active)
     v0 = np.ascontiguousarray(np.asarray(scene.geometry.v0)[act])
     e1 = np.ascontiguousarray(np.asarray(scene.geometry.e1)[act])
@@ -95,7 +96,7 @@ def test_native_builder_available_and_better():
             miss_link=jnp.asarray(miss), leaf_first=jnp.asarray(lfirst),
             leaf_count=jnp.asarray(lcount))
 
-    from romis_tpu.ops.bvh import _build_arrays_native
+    from romis.ops.bvh import _build_arrays_native
 
     sah_native = sah_cost(mk(_build_arrays_native(v0, e1, e2, 4)))
     sah_median = sah_cost(mk(_build_arrays_numpy(v0, e1, e2, 4)))
@@ -103,7 +104,7 @@ def test_native_builder_available_and_better():
 
 
 def test_leaf_ranges_cover_all_triangles():
-    scene = load_prebuilt("monkey")
+    scene = load_prebuilt("blob")
     bvh, geo = build_bvh(scene.geometry)
     first = np.asarray(bvh.leaf_first)
     count = np.asarray(bvh.leaf_count)
@@ -119,10 +120,10 @@ def test_full_render_with_bvh_matches_bruteforce():
     """End-to-end: a ReSTIR frame rendered through the BVH dispatch must
     match the brute-force render except at triangle-edge tie pixels."""
     import jax
-    from romis_tpu.core.camera import make_camera
-    from romis_tpu.core.features import Features
-    from romis_tpu.ops.bvh import with_bvh
-    from romis_tpu.render.restir import (
+    from romis.core.camera import make_camera
+    from romis.core.features import Features
+    from romis.ops.bvh import with_bvh
+    from romis.render.restir import (
         initial_temporal_state, render_restir_frame,
     )
 

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from romis_tpu.core.camera import (
+from romis.core.camera import (
     CameraParams, camera_position, generate_rays, make_camera,
     project_to_pixel, quat_from_euler_xyz, quat_rotate,
 )

@@ -21,12 +21,12 @@ import numpy as np
 import jax
 import pytest
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.parallel.mesh import make_mesh
-from romis_tpu.parallel.shard import render_frame_sharded
-from romis_tpu.render.restir import initial_temporal_state
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import make_camera
+from romis.core.features import Features
+from romis.parallel.mesh import make_mesh
+from romis.parallel.shard import render_frame_sharded
+from romis.render.restir import initial_temporal_state
+from romis.scene.scene import load_prebuilt
 
 H, W = 16, 16
 SEED = 11
@@ -40,18 +40,18 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from romis_tpu.parallel.launch import global_mesh, maybe_init_distributed
+from romis.parallel.launch import global_mesh, maybe_init_distributed
 
 assert maybe_init_distributed(), "cluster env vars not picked up"
 assert jax.process_count() == 2, jax.process_count()
 assert len(jax.local_devices()) == 4
 assert len(jax.devices()) == 8
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.parallel.shard import render_frame_sharded
-from romis_tpu.render.restir import initial_temporal_state
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import make_camera
+from romis.core.features import Features
+from romis.parallel.shard import render_frame_sharded
+from romis.render.restir import initial_temporal_state
+from romis.scene.scene import load_prebuilt
 
 H, W, SEED = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 out_path = sys.argv[4]

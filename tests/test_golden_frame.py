@@ -18,23 +18,23 @@ import jax
 import jax.numpy as jnp
 
 import oracle
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import Features
-from romis_tpu.ops.shading import exposure_tone_mapping
-from romis_tpu.ops.wrs import (
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import Features
+from romis.ops.shading import exposure_tone_mapping
+from romis.ops.wrs import (
     SHADOW_RAY_EPSILON,
     clamp_temporal_m,
     combine_biased,
     gen_canonical_samples,
 )
-from romis_tpu.render.restir import (
+from romis.render.restir import (
     SPATIAL_DEPTH_FRAC,
     SPATIAL_NORMAL_COS,
     final_shade,
     spatial_reuse,
     trace_primary,
 )
-from romis_tpu.scene.scene import load_prebuilt
+from romis.scene.scene import load_prebuilt
 
 H = W = 8
 FEATS = Features(initial_light_samples=8, num_neighbours_to_sample=3,

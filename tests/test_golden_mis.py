@@ -1,9 +1,7 @@
 """Exact per-pixel float64 golden oracles for R-MIS and R-OMIS iterations.
 
-VERDICT r3 item 7: the fused-kernel parity tests (test_pallas_mis.py) tie the
-kernels to the XLA formulation, and the statistical tests (test_rmis_romis.py)
-validate the estimator within a 12% band — a subtle scale/indexing bug common
-to both sides could pass both. Here the canonical reservoirs and neighbour
+The statistical tests (test_rmis_romis.py) validate the estimator within a
+12% band — a subtle scale/indexing bug could pass them. Here the canonical reservoirs and neighbour
 coordinates enter as INJECTED shared data and everything downstream — the
 per-sample MIS weights (equal and generalised balance), the R-OMIS colvec
 (arbitraryUnbiasedContributionWeightReciprocal), scale/ŵ, the A/b
@@ -23,13 +21,13 @@ import pytest
 
 import oracle
 from test_golden_frame import _Res, _oracle_p_hat, _oracle_visible
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import Features, MISWeight, RayTraceMode
-from romis_tpu.ops.wrs import gen_canonical_samples
-from romis_tpu.render.restir import trace_primary
-from romis_tpu.render.rmis import FLT_MIN, render_rmis
-from romis_tpu.render.romis import render_romis
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import Features, MISWeight, RayTraceMode
+from romis.ops.wrs import gen_canonical_samples
+from romis.render.restir import trace_primary
+from romis.render.rmis import FLT_MIN, render_rmis
+from romis.render.romis import render_romis
+from romis.scene.scene import load_prebuilt
 
 H = W = 6
 D = 2          # neighbours; D1 = 3 techniques

@@ -6,14 +6,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.diff.grad import (
+from romis.core.camera import make_camera
+from romis.core.features import Features
+from romis.diff.grad import (
     SceneParams, apply_params, extract_params, l2_image_loss,
     render_with_params,
 )
-from romis_tpu.render.restir import initial_temporal_state
-from romis_tpu.scene.scene import load_prebuilt
+from romis.render.restir import initial_temporal_state
+from romis.scene.scene import load_prebuilt
 
 HW = (12, 12)
 
@@ -159,15 +159,17 @@ def test_vertex_grad_finite_difference_on_energy(cornell):
 
 
 def test_apply_params_drops_stale_host_specialisations(cornell):
-    """uniform_shin (like const_cols/affine_segments) is detected from the
-    ORIGINAL host arrays at build time; once traced params can move
-    shininess, the fused final-shade kernel must not keep specialising the
-    specular pow on the stale build-time exponent (advisor round-1 high)."""
+    """The packed row tables are built from the host arrays at scene build
+    time; apply_params must repack them from the traced params, so no
+    stale build-time value survives in the tables the renderer reads."""
     params = extract_params(cornell.geometry, cornell.lights)
-    params = params.replace(mat_shininess=params.mat_shininess + 7.0)
+    params = params.replace(mat_shininess=params.mat_shininess + 7.0,
+                            light_c0=params.light_c0 * 2.0)
     geometry, lights = apply_params(cornell.geometry, cornell.lights, params)
-    assert geometry.uniform_shin is None
-    assert lights.const_cols is None and lights.affine_segments is None
     np.testing.assert_allclose(
         np.asarray(geometry.mat_shininess),
         np.asarray(cornell.geometry.mat_shininess) + 7.0)
+    np.testing.assert_allclose(np.asarray(geometry.mat_rows[:, 6]),
+                               np.asarray(geometry.mat_shininess))
+    np.testing.assert_allclose(np.asarray(lights.rows[:, 9:12]),
+                               np.asarray(cornell.lights.c0) * 2.0)

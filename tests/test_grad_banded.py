@@ -16,16 +16,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features, MISWeight, RayTraceMode
-from romis_tpu.diff.banded import mis_banded_l2_loss, render_mis_banded
-from romis_tpu.diff.grad import apply_params, extract_params
-from romis_tpu.ops.wrs import gen_canonical_samples
-from romis_tpu.render.neighbours import select_neighbour_indices
-from romis_tpu.render.restir import trace_primary
-from romis_tpu.render.rmis import PH_NEIGHBOURS, render_rmis
-from romis_tpu.render.romis import render_romis
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import make_camera
+from romis.core.features import Features, MISWeight, RayTraceMode
+from romis.diff.banded import mis_banded_l2_loss, render_mis_banded
+from romis.diff.grad import apply_params, extract_params
+from romis.ops.wrs import gen_canonical_samples
+from romis.render.neighbours import select_neighbour_indices
+from romis.render.restir import trace_primary
+from romis.render.rmis import PH_NEIGHBOURS, render_rmis
+from romis.render.romis import render_romis
+from romis.scene.scene import load_prebuilt
 
 HW = (12, 12)
 N_BANDS = 3
@@ -45,7 +45,7 @@ def _mis_feats(**kw):
     base = dict(
         enable_tone_mapping=False, initial_light_samples=4,
         max_iterations_mis=2, spatial_resample_radius=2,
-        num_neighbours_to_sample=2, fused_resampling=False,
+        num_neighbours_to_sample=2,
     )
     base.update(kw)
     return Features(**base)
@@ -68,14 +68,13 @@ def _make_inject(scene, feats, key=0):
     """Explicit neighbour coords + per-iteration canonical reservoirs, shared
     verbatim by the single-pass and banded renderers."""
     h, w = HW
-    from romis_tpu.core.camera import generate_rays
+    from romis.core.camera import generate_rays
 
     rays = generate_rays(_cam(), h, w)
     _, ctx = trace_primary(rays, scene.geometry, feats)
     k = jax.random.PRNGKey(key)
     ny, nx = select_neighbour_indices(
-        jax.random.fold_in(k, PH_NEIGHBOURS), ctx, h, w, feats,
-        scene.geometry)
+        jax.random.fold_in(k, PH_NEIGHBOURS), ctx, h, w, feats)
     res = [
         gen_canonical_samples(jax.random.fold_in(k, 100 + it), ctx,
                               scene.lights, scene.num_lights,
@@ -188,8 +187,8 @@ def test_banded_light_color_grad_matches_finite_difference(cornell, feats):
     target = jnp.zeros(HW + (3,))
     args = (target, jax.random.PRNGKey(0), _cam(), cornell.geometry,
             cornell.lights, cornell.num_lights, h, w, feats, N_BANDS)
-    loss_fn = lambda p: mis_banded_l2_loss(p, *args)  # noqa: E731
-    g = jax.grad(loss_fn)(params)
+    loss_fn = jax.jit(lambda p: mis_banded_l2_loss(p, *args))
+    g = jax.jit(jax.grad(loss_fn))(params)
     for name in vars(g):
         assert np.isfinite(np.asarray(getattr(g, name))).all(), name
 

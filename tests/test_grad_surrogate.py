@@ -9,12 +9,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import generate_rays, make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.ops.wrs import gen_canonical_samples
-from romis_tpu.render.restir import trace_primary
-from romis_tpu.scene.lights import LightListBuilder
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import generate_rays, make_camera
+from romis.core.features import Features
+from romis.ops.wrs import gen_canonical_samples
+from romis.render.restir import trace_primary
+from romis.scene.lights import LightListBuilder
+from romis.scene.scene import load_prebuilt
 
 HW = (12, 12)
 
@@ -29,7 +29,7 @@ def _setup():
                         (1, 5, 1), (1, 5, 1), (5, 1, 1), (1, 1, 5))
     b.add_point((0.0, 0.3, 0.0), (2, 2, 2))
     b.add_segment((-0.5, 0.1, -0.5), (0.5, 0.1, -0.5), (1, 2, 3), (3, 2, 1))
-    lights = b.build().replace(const_cols=None, affine_segments=None)
+    lights = b.build()
     nl = len(b)
 
     h, w = HW
@@ -72,14 +72,11 @@ def test_surrogate_values_identical():
 
 
 def test_replay_kernel_surrogate_tail_interpret():
-    """Fused replay kernel (interpret: zero PRNG → every candidate is light
-    0 at its (0,0) corner) + the surrogate tail reconstruct the same
-    closed-form reservoir as tests/test_pallas.test_ris_kernel_matches_wrs_
-    semantics, and gradients flow through the tail into the light table."""
-    from jax.experimental.pallas import tpu as pltpu
-    from romis_tpu.ops.pallas_ris import gen_canonical_replay_pallas
-    from romis_tpu.ops.shading import target_pdf
-    from romis_tpu.ops.wrs import _lane_layout, _surrogate_tail
+    """The surrogate tail, fed a fixed replay (every candidate is light 0
+    at its (0,0) corner), reconstructs the closed-form reservoir, and
+    gradients flow through the tail into the light table."""
+    from romis.ops.shading import target_pdf
+    from romis.ops.wrs import _lane_layout, _surrogate_tail
 
     import sys
     sys.path.insert(0, "tests")
@@ -97,23 +94,24 @@ def test_replay_kernel_surrogate_tail_interpret():
     nl = len(b)
     _, lane_counts, _ = _lane_layout(feats.initial_light_samples, k)
 
-    w_sum, r1, r2 = gen_canonical_replay_pallas(
-        9, ctx, lights, nl, feats, interpret=pltpu.InterpretParams())
-
-    def tail_loss(rows):
-        li = lights.replace(rows=rows, const_cols=None, affine_segments=None)
-        res = _surrogate_tail(ctx, li, nl, None, feats, lane_counts,
-                              w_sum, r1, r2)
-        return jnp.sum(res.big_w), res
-
-    (_, res), g = jax.value_and_grad(tail_loss, has_aux=True)(lights.rows)
-
     pos0 = np.asarray(lights.rows[0, 0:3])
     col0 = np.asarray(lights.rows[0, 9:12])
     pos = jnp.broadcast_to(jnp.asarray(pos0)[:, None, None], (3, h, w))
     col = jnp.broadcast_to(jnp.asarray(col0)[:, None, None], (3, h, w))
     p_hat = np.asarray(target_pdf(ctx, pos, col, feats))
     w_cand = p_hat * nl
+    w_sum = jnp.asarray(np.asarray(lane_counts)[:, None, None] * w_cand)
+    zero = jnp.zeros((k, h, w))
+    r1 = r2 = (zero, zero, zero)  # (light index, u1, u2) of the winner
+
+    def tail_loss(rows):
+        li = lights.replace(rows=rows)
+        res = _surrogate_tail(ctx, li, nl, None, feats, lane_counts,
+                              w_sum, r1, r2)
+        return jnp.sum(res.big_w), res
+
+    (_, res), g = jax.value_and_grad(tail_loss, has_aux=True)(lights.rows)
+
     for lane in range(k):
         cnt = float(lane_counts[lane])
         np.testing.assert_allclose(np.asarray(w_sum[lane]), cnt * w_cand,
@@ -190,7 +188,7 @@ def test_spatial_surrogate_values_identical():
     """combine_biased_surrogate shares the exact path's primary gumbel, so
     every output value matches combine_biased bit-for-bit (up to fusion
     reassociation in the re-evaluated winner attributes)."""
-    from romis_tpu.ops.wrs import combine_biased, combine_biased_surrogate
+    from romis.ops.wrs import combine_biased, combine_biased_surrogate
 
     feats, recv, inputs, in_mask = _combine_setup()
     key = jax.random.PRNGKey(5)
@@ -215,7 +213,7 @@ def test_spatial_surrogate_gradient_unbiased_exact():
     weighting applies directly to the gradient components. Cells whose
     w_sum is 0 get no correction from any j (ratio = 0): the leftover
     (1 - sum_j P_j) weight goes to any forced j (they all agree there)."""
-    from romis_tpu.ops.wrs import (
+    from romis.ops.wrs import (
         _stream_weights, combine_biased, combine_biased_surrogate,
     )
 
@@ -276,7 +274,7 @@ def test_spatial_surrogate_gradient_unbiased_exact():
 # ---------------------------------------------------------------------------
 
 def test_records_combine_matches_chain_gradients():
-    from romis_tpu.ops.wrs import (
+    from romis.ops.wrs import (
         combine_biased_surrogate, gen_canonical_with_records,
     )
 
@@ -294,8 +292,7 @@ def test_records_combine_matches_chain_gradients():
     in_mask = jnp.ones((r, h, w), bool)
 
     def loss(rows, kd, use_records):
-        li = lights.replace(rows=rows, const_cols=None,
-                            affine_segments=None)
+        li = lights.replace(rows=rows)
         cx = ctx.replace(kd=kd)
         outs = [gen_canonical_with_records(ckeys[i], cx, li, nl, geometry,
                                            feats) for i in range(r)]
@@ -324,8 +321,8 @@ def test_records_combine_matches_chain_gradients():
 def test_records_pipeline_values_match_exact():
     """Full production-gradient-config frame (surrogate + records engaged in
     render_restir_frame) must render the same image as the exact XLA path."""
-    from romis_tpu.core.camera import make_camera
-    from romis_tpu.render.restir import (
+    from romis.core.camera import make_camera
+    from romis.render.restir import (
         initial_temporal_state, render_restir_frame,
     )
 
@@ -333,7 +330,7 @@ def test_records_pipeline_values_match_exact():
     h, w = HW
     cam = make_camera(look_at=(0, 0, 0), rotation_deg=(0, 0, 0),
                       distance=2.5, fov_deg=50, resolution=HW)
-    base = Features(enable_tone_mapping=False, fused_resampling=False,
+    base = Features(enable_tone_mapping=False,
                     initial_light_samples=8)
     key = jax.random.PRNGKey(4)
 
@@ -365,17 +362,17 @@ def test_mis_records_gather_matches_plain_and_grads(est):
     import numpy as np
     from types import SimpleNamespace
 
-    from romis_tpu.core.camera import generate_rays, make_camera
-    from romis_tpu.core.features import Features, RayTraceMode
-    from romis_tpu.ops.wrs import gen_canonical_with_records
-    from romis_tpu.render.neighbours import select_neighbour_indices
-    from romis_tpu.render.restir import trace_primary
-    from romis_tpu.render.rmis import (
+    from romis.core.camera import generate_rays, make_camera
+    from romis.core.features import Features, RayTraceMode
+    from romis.ops.wrs import gen_canonical_with_records
+    from romis.render.neighbours import select_neighbour_indices
+    from romis.render.restir import trace_primary
+    from romis.render.rmis import (
         PH_NEIGHBOURS, _gather_neighbourhood, gather_nb_records,
         rmis_sample_contrib, slim_ctx_stream,
     )
-    from romis_tpu.render.romis import romis_iteration_terms
-    from romis_tpu.scene.scene import load_prebuilt
+    from romis.render.romis import romis_iteration_terms
+    from romis.scene.scene import load_prebuilt
 
     h, w = 14, 18
     scene = load_prebuilt("cornell_box_parallelogram_light")
@@ -383,7 +380,6 @@ def test_mis_records_gather_matches_plain_and_grads(est):
     feats = Features(ray_trace_mode=rtm,
                      initial_light_samples=4, max_iterations_mis=1,
                      spatial_resample_radius=2, num_neighbours_to_sample=2,
-                     fused_resampling=False,
                      surrogate_resampling_grad=True,
                      enable_tone_mapping=False)
     cam = make_camera(look_at=(0, 0, 0), rotation_deg=(0, 0, 0),
@@ -392,16 +388,13 @@ def test_mis_records_gather_matches_plain_and_grads(est):
     _, ctx = trace_primary(rays, scene.geometry, feats)
     key = jax.random.PRNGKey(2)
     ny, nx = select_neighbour_indices(
-        jax.random.fold_in(key, PH_NEIGHBOURS), ctx, h, w, feats,
-        scene.geometry)
-    radius = feats.spatial_resample_radius
-    gfn = lambda tr: _gather_neighbourhood(tr, ny, nx, radius, False)
+        jax.random.fold_in(key, PH_NEIGHBOURS), ctx, h, w, feats)
+    gfn = lambda tr: _gather_neighbourhood(tr, ny, nx)
     d1 = feats.num_neighbours_to_sample + 1
     alphas = jnp.zeros((3, d1, h, w))
 
     def nb_for(rows, mode):
-        lights = scene.lights.replace(rows=rows, const_cols=None,
-                                      affine_segments=None)
+        lights = scene.lights.replace(rows=rows)
         res, rec = gen_canonical_with_records(
             jax.random.fold_in(key, 9), ctx, lights, scene.num_lights,
             scene.geometry, feats)
@@ -435,7 +428,7 @@ def test_mis_records_gather_matches_plain_and_grads(est):
         if est == "rmis":
             return jnp.sum(rmis_sample_contrib(
                 ctx, None, nb, scene.geometry, feats) ** 2)
-        nbhd = slim_ctx_stream(ctx, ny, nx, radius, False)
+        nbhd = slim_ctx_stream(ctx, ny, nx)
         a_d, b_d, _ = romis_iteration_terms(
             ctx, nbhd, nb, alphas, scene.num_lights, scene.geometry, feats)
         return jnp.sum(a_d ** 2) + jnp.sum(b_d ** 2)
@@ -462,11 +455,11 @@ def test_banded_surrogate_records_fd(mode):
     MIS_GRAD_SURR=1 configuration end-to-end)."""
     import numpy as np
 
-    from romis_tpu.core.camera import make_camera
-    from romis_tpu.core.features import Features, RayTraceMode
-    from romis_tpu.diff.banded import mis_banded_l2_loss
-    from romis_tpu.diff.grad import extract_params
-    from romis_tpu.scene.scene import load_prebuilt
+    from romis.core.camera import make_camera
+    from romis.core.features import Features, RayTraceMode
+    from romis.diff.banded import mis_banded_l2_loss
+    from romis.diff.grad import extract_params
+    from romis.scene.scene import load_prebuilt
 
     h, w = 12, 12
     scene = load_prebuilt("cornell_box_parallelogram_light")
@@ -474,7 +467,7 @@ def test_banded_surrogate_records_fd(mode):
            else RayTraceMode.ROMIS)
     feats = Features(ray_trace_mode=rtm, initial_light_samples=4,
                      max_iterations_mis=2, spatial_resample_radius=2,
-                     num_neighbours_to_sample=2, fused_resampling=False,
+                     num_neighbours_to_sample=2,
                      surrogate_resampling_grad=True,
                      enable_tone_mapping=False)
     cam = make_camera(look_at=(0, 0, 0), rotation_deg=(0, 0, 0),

@@ -9,18 +9,18 @@ from functools import partial
 from jax.experimental.shard_map import shard_map
 from jax.sharding import PartitionSpec as P
 
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import Features
-from romis_tpu.parallel.halo import _halo_extend, spatial_reuse_halo
-from romis_tpu.parallel.mesh import TILE_AXIS, make_mesh
-from romis_tpu.parallel.shard import (
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import Features
+from romis.parallel.halo import _halo_extend, spatial_reuse_halo
+from romis.parallel.mesh import TILE_AXIS, make_mesh
+from romis.parallel.shard import (
     make_sharded_train_step, render_frame_sharded,
 )
-from romis_tpu.render.restir import (
+from romis.render.restir import (
     initial_temporal_state, render_restir_frame, spatial_reuse, trace_primary,
 )
-from romis_tpu.ops.wrs import gen_canonical_samples
-from romis_tpu.scene.scene import load_prebuilt
+from romis.ops.wrs import gen_canonical_samples
+from romis.scene.scene import load_prebuilt
 
 N_DEV = 8
 
@@ -83,10 +83,12 @@ def test_spatial_reuse_halo_matches_invariants(mesh, cornell, unbiased):
                                 cornell.num_lights, cornell.geometry, feats)
 
     with mesh:
-        out_halo = spatial_reuse_halo(jax.random.PRNGKey(1), ctx, res, h, w,
-                                      cornell.geometry, feats, mesh)
-    out_ref = spatial_reuse(jax.random.PRNGKey(1), ctx, res, h, w,
-                            cornell.geometry, feats)
+        out_halo = jax.jit(lambda k, c, r, g: spatial_reuse_halo(
+            k, c, r, h, w, g, feats, mesh))(
+            jax.random.PRNGKey(1), ctx, res, cornell.geometry)
+    out_ref = jax.jit(lambda k, c, r, g: spatial_reuse(
+        k, c, r, h, w, g, feats))(
+        jax.random.PRNGKey(1), ctx, res, cornell.geometry)
 
     for name in ("m", "w_sum", "big_w"):
         a = np.asarray(getattr(out_halo, name))
@@ -131,12 +133,13 @@ def test_spatial_reuse_halo_bitwise_parity(mesh, cornell, unbiased):
         for _ in range(feats.spatial_resampling_passes)
     ]
 
-    out_1 = spatial_reuse(jax.random.PRNGKey(1), ctx, res, h, w,
-                          cornell.geometry, feats, inject=inject)
+    out_1 = jax.jit(lambda k, c, r, g, i: spatial_reuse(
+        k, c, r, h, w, g, feats, inject=i))(
+        jax.random.PRNGKey(1), ctx, res, cornell.geometry, inject)
     with mesh:
-        out_n = spatial_reuse_halo(jax.random.PRNGKey(1), ctx, res, h, w,
-                                   cornell.geometry, feats, mesh,
-                                   inject=inject)
+        out_n = jax.jit(lambda k, c, r, g, i: spatial_reuse_halo(
+            k, c, r, h, w, g, feats, mesh, inject=i))(
+            jax.random.PRNGKey(1), ctx, res, cornell.geometry, inject)
     for name in ("pos", "color", "w_sum", "m", "big_w", "chosen_w"):
         np.testing.assert_array_equal(
             np.asarray(getattr(out_n, name)),
@@ -173,7 +176,7 @@ def test_sharded_train_step_moves_params(mesh, cornell):
                      temporal_reprojection=True, enable_tone_mapping=False)
     cam = make_camera(look_at=(0, 0, 0), rotation_deg=(0, 0, 0),
                       distance=2.5, fov_deg=50, resolution=(h, w))
-    from romis_tpu.diff.grad import extract_params
+    from romis.diff.grad import extract_params
 
     params = extract_params(cornell.geometry, cornell.lights)
     prev = initial_temporal_state(h, w, feats.num_samples_in_reservoir, cam)
@@ -202,7 +205,7 @@ def test_render_frame_halo_end_to_end(mesh, cornell):
                       distance=2.5, fov_deg=50, resolution=(h, w))
     feats = Features(initial_light_samples=8, spatial_resample_radius=3)
     prev = initial_temporal_state(h, w, feats.num_samples_in_reservoir, cam)
-    from romis_tpu.parallel.halo import render_frame_halo
+    from romis.parallel.halo import render_frame_halo
 
     with mesh:
         fn = jax.jit(lambda key, cam, prev: render_frame_halo(

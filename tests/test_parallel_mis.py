@@ -17,15 +17,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import Features, MISWeight, RayTraceMode
-from romis_tpu.ops.wrs import gen_canonical_samples
-from romis_tpu.parallel.mesh import make_mesh
-from romis_tpu.parallel.mis import render_rmis_sharded, render_romis_sharded
-from romis_tpu.render.restir import trace_primary
-from romis_tpu.render.rmis import render_rmis
-from romis_tpu.render.romis import render_romis
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import Features, MISWeight, RayTraceMode
+from romis.ops.wrs import gen_canonical_samples
+from romis.parallel.mesh import make_mesh
+from romis.parallel.mis import render_rmis_sharded, render_romis_sharded
+from romis.render.restir import trace_primary
+from romis.render.rmis import render_rmis
+from romis.render.romis import render_romis
+from romis.scene.scene import load_prebuilt
 
 H, W = 32, 16
 D = 2
@@ -211,8 +211,8 @@ def test_romis_sharded_statistics_without_injection(setup):
 
 # ===== differentiable × multi-chip (VERDICT r4 missing-item 2) =====
 
-from romis_tpu.diff.grad import apply_params, extract_params  # noqa: E402
-from romis_tpu.parallel.mis import make_sharded_mis_train_step  # noqa: E402
+from romis.diff.grad import apply_params, extract_params  # noqa: E402
+from romis.parallel.mis import make_sharded_mis_train_step  # noqa: E402
 
 
 @pytest.mark.parametrize("mode", ["rmis_balance", "romis_direct"])
@@ -228,7 +228,6 @@ def test_sharded_mis_grad_matches_single_device_with_injection(setup, mode):
     else:
         feats = FEATS.replace(ray_trace_mode=RayTraceMode.ROMIS,
                               enable_tone_mapping=False)
-    feats = feats.replace(fused_resampling=False)
     nl = s["scene"].num_lights
     params = extract_params(s["scene"].geometry, s["scene"].lights)
     target = jnp.zeros((H, W, 3))

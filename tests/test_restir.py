@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import Features
-from romis_tpu.core.vec import e
-from romis_tpu.ops.shading import phong_shade
-from romis_tpu.ops.wrs import visibility
-from romis_tpu.render.restir import (
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import Features
+from romis.core.vec import e
+from romis.ops.shading import phong_shade
+from romis.ops.wrs import visibility
+from romis.render.restir import (
     initial_temporal_state, render_restir_frame, trace_primary,
 )
-from romis_tpu.scene.lights import sample_lights
-from romis_tpu.scene.scene import load_prebuilt
+from romis.scene.lights import sample_lights
+from romis.scene.scene import load_prebuilt
 
 
 HW = (24, 24)

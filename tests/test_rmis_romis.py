@@ -7,19 +7,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera, generate_rays
-from romis_tpu.core.features import (
+from romis.core.camera import make_camera, generate_rays
+from romis.core.features import (
     Features, MISWeight, NeighbourSelectionStrategy,
 )
-from romis_tpu.core.vec import e
-from romis_tpu.ops.shading import phong_shade
-from romis_tpu.ops.wrs import visibility
-from romis_tpu.render.neighbours import select_neighbour_indices
-from romis_tpu.render.restir import trace_primary
-from romis_tpu.render.rmis import render_rmis
-from romis_tpu.render.romis import render_romis
-from romis_tpu.scene.lights import sample_lights
-from romis_tpu.scene.scene import load_prebuilt
+from romis.core.vec import e
+from romis.ops.shading import phong_shade
+from romis.ops.wrs import visibility
+from romis.render.neighbours import select_neighbour_indices
+from romis.render.restir import trace_primary
+from romis.render.rmis import render_rmis
+from romis.render.romis import render_romis
+from romis.scene.lights import sample_lights
+from romis.scene.scene import load_prebuilt
 
 HW = (20, 20)
 
@@ -188,8 +188,8 @@ def test_neighbour_similar_prefers_same_surface(cornell, cam):
 def test_solve_alpha_robust_to_degenerate_systems():
     """The α solve must stay finite on ill-conditioned, rank-deficient,
     and all-zero technique matrices (regression: near-singular pixels
-    overflowed the Cholesky back-substitution to NaN on TPU data)."""
-    from romis_tpu.render.romis import solve_alpha
+    overflowed the Cholesky back-substitution to NaN)."""
+    from romis.render.romis import solve_alpha
 
     d1, h, w = 6, 4, 8
     rng = np.random.default_rng(0)

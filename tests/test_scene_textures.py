@@ -7,12 +7,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from romis_tpu.core.camera import make_camera
-from romis_tpu.core.features import Features
-from romis_tpu.ops.shading import acquire_texel, diffuse_albedo
-from romis_tpu.render.restir import initial_temporal_state, render_restir_frame
-from romis_tpu.scene.objloader import load_obj
-from romis_tpu.scene.scene import build_geometry, default_data_dir, load_prebuilt
+from romis.core.camera import make_camera
+from romis.core.features import Features
+from romis.ops.shading import acquire_texel, diffuse_albedo
+from romis.render.restir import initial_temporal_state, render_restir_frame
+from romis.scene.objloader import load_obj
+from romis.scene.scene import (
+    PREBUILT_SCENES, build_geometry, load_blob_field, load_prebuilt,
+    load_scene_from_file,
+)
+from romis.scene.lights import LightListBuilder
 
 
 def test_obj_face_formats(tmp_path):
@@ -79,14 +83,10 @@ def test_acquire_texel_indexing():
     np.testing.assert_allclose(out[:, 0, 0], tex[0, 1, 3])
 
 
-@pytest.mark.skipif(default_data_dir() is None, reason="no data dir")
 def test_cube_textured_scene_renders():
-    try:
-        import PIL  # noqa: F401
-    except ImportError:
-        pytest.skip("pillow unavailable for texture decode")
     scene = load_prebuilt("cube_textured")
     has_tex = int(np.asarray(scene.geometry.mat_tex_id).max()) >= 0
+    assert has_tex  # the procedural checker texture
     h, w = 24, 24
     cam = make_camera(look_at=(0, 0, 0), rotation_deg=(15, 30, 0),
                       distance=3.0, fov_deg=50, resolution=(h, w))
@@ -106,8 +106,7 @@ def test_cube_textured_scene_renders():
         assert not np.array_equal(img, np.asarray(img2))
 
 
-@pytest.mark.skipif(default_data_dir() is None, reason="no data dir")
-@pytest.mark.parametrize("name", ["monkey", "cornell_box", "cube"])
+@pytest.mark.parametrize("name", ["blob", "cornell_box", "cube"])
 def test_remaining_prebuilt_scenes_render(name):
     scene = load_prebuilt(name)
     h, w = 16, 16
@@ -119,3 +118,54 @@ def test_remaining_prebuilt_scenes_render(name):
         jax.random.PRNGKey(0), cam, scene.geometry, scene.lights,
         scene.num_lights, h, w, feats, prev)
     assert np.isfinite(np.asarray(img)).all()
+
+
+# (triangles, lights) of every generated scene; the Cornell box and the
+# nightclub light grid keep the reference's counts (scene.cpp:30-66).
+_COUNTS = {"single_triangle": (1, 1), "cube": (12, 1),
+           "cube_textured": (12, 1), "cornell_box": (32, 1),
+           "cornell_box_parallelogram_light": (32, 1),
+           "cornell_nightclub": (166, 512), "blob": (960, 2)}
+
+
+@pytest.mark.parametrize("name", PREBUILT_SCENES)
+def test_prebuilt_scene_deterministic_counts(name):
+    a, b = load_prebuilt(name, seed=3), load_prebuilt(name, seed=3)
+    assert (int(np.asarray(a.geometry.active).sum()), a.num_lights) == \
+        _COUNTS[name]
+    for x, y in zip(jax.tree.leaves((a.geometry, a.lights)),
+                    jax.tree.leaves((b.geometry, b.lights))):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    if name in ("cornell_nightclub", "blob"):  # the seeded scenes
+        c = load_prebuilt(name, seed=4)
+        assert not np.array_equal(np.asarray(a.geometry.v0),
+                                  np.asarray(c.geometry.v0))
+
+
+def test_blob_field_size_and_determinism():
+    """n=5 stays above 24k triangles (the large-scene workload); n=2 is
+    the small field the sharded large-scene tests use."""
+    big = load_blob_field(5)
+    assert int(np.asarray(big.geometry.active).sum()) >= 24_000
+    small, again = load_blob_field(2, seed=1), load_blob_field(2, seed=1)
+    assert int(np.asarray(small.geometry.active).sum()) == 4 * 960 + 2
+    np.testing.assert_array_equal(np.asarray(small.geometry.v0),
+                                  np.asarray(again.geometry.v0))
+
+
+def test_load_prebuilt_rejects_unknown_name():
+    with pytest.raises(ValueError, match="unknown prebuilt scene"):
+        load_prebuilt("monkey")
+
+
+def test_load_scene_from_file_uses_data_dir(tmp_path, monkeypatch):
+    (tmp_path / "tri.obj").write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
+    lights = LightListBuilder().add_point((0, 0, -1), (1, 1, 1))
+    monkeypatch.setenv("ROMIS_DATA_DIR", str(tmp_path))
+    scene = load_scene_from_file("tri.obj", lights)
+    assert scene.name == "tri" and scene.num_lights == 1
+    monkeypatch.delenv("ROMIS_DATA_DIR")
+    with pytest.raises(FileNotFoundError):
+        load_scene_from_file("tri.obj", lights)
+    assert load_scene_from_file("tri.obj", lights,
+                                data_dir=str(tmp_path)).name == "tri"

@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from romis_tpu.core.features import Features
-from romis_tpu.ops.shading import (
+from romis.core.features import Features
+from romis.ops.shading import (
     exposure_tone_mapping, phong_shade, target_pdf,
 )
 
@@ -129,9 +129,9 @@ def test_planes_forms_match_vector_forms():
     originals."""
     import jax
     import jax.numpy as jnp
-    from romis_tpu.core.features import Features
-    from romis_tpu.ops.shading import target_pdf, target_pdf_planes
-    from romis_tpu.scene.lights import (
+    from romis.core.features import Features
+    from romis.ops.shading import target_pdf, target_pdf_planes
+    from romis.scene.lights import (
         LightListBuilder, sample_lights, sample_lights_planes,
     )
     from helpers import random_reservoirs_and_ctx

@@ -7,16 +7,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from romis_tpu.core.features import Features
-from romis_tpu.core.types import Reservoirs
-from romis_tpu.ops.shading import target_pdf
-from romis_tpu.ops.wrs import (
+from romis.core.features import Features
+from romis.core.types import Reservoirs
+from romis.ops.shading import target_pdf
+from romis.ops.wrs import (
     clamp_temporal_m, combine_biased, combine_unbiased, gen_canonical_samples,
     _lane_layout,
 )
-from romis_tpu.scene.lights import LightListBuilder
-from romis_tpu.scene.scene import build_geometry
-from romis_tpu.scene.objloader import SubMesh, Material
+from romis.scene.lights import LightListBuilder
+from romis.scene.scene import build_geometry
+from romis.scene.objloader import SubMesh, Material
 
 from helpers import make_ctx
 
